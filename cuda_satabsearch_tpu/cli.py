@@ -1,4 +1,4 @@
-"""tpusatabsearch — drop-in CLI for SA tableau search on TPU.
+"""tpusatabsearch — drop-in CLI for SA tableau search on the GPU.
 
 Flag- and protocol-compatible with the reference driver
 (/root/reference/nvcc_src_current/cudaSaTabsearch.cu:573-700):
@@ -8,8 +8,8 @@ Flag- and protocol-compatible with the reference driver
 * ``-q DBFILE``: query-list mode — stdin carries structure identifiers
   resolved against the database; LTYPE=T LORDER=T LSOLN=F forced;
 * ``-r N``: number of SA restarts (default 128);
-* ``-c``: run on CPU (the JAX CPU backend; the reference's ``-c`` runs
-  its host-compiled kernel).
+* ``-c``: run on the CPU (the JAX CPU backend and the XLA engine; the
+  reference's ``-c`` runs its host-compiled kernel).
 
 Extensions (all optional, default off):
 * ``--mesh``: shard the DB entry axis over all visible devices;
@@ -41,9 +41,9 @@ PROGRAM = "tpusatabsearch"
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog=PROGRAM,
-        description="Simulated-annealing tableau search (TPU-native)")
+        description="Simulated-annealing tableau search")
     ap.add_argument("-c", "--cpu", action="store_true",
-                    help="run on CPU backend instead of TPU")
+                    help="run on the CPU instead of the GPU")
     ap.add_argument("-q", "--querydb", metavar="DBFILE", default=None,
                     help="query-list mode: read query ids from stdin, "
                          "resolve them in DBFILE")
@@ -53,10 +53,6 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="shard DB entries across all visible devices")
     ap.add_argument("--gather-mode", choices=("auto", "take", "onehot"),
                     default="auto")
-    ap.add_argument("--backend", choices=("auto", "pallas", "xla"),
-                    default="auto",
-                    help="SA kernel: hand-fused Pallas TPU kernel or the "
-                         "portable XLA engine (auto: pallas on TPU)")
     ap.add_argument("--compat-z", action="store_true",
                     help="reproduce reference int-truncated z-scores")
     ap.add_argument("--seed", type=int, default=1234)
@@ -90,8 +86,7 @@ def _run(argv=None) -> int:
     print(f"MAXDIM = {MAXDIM}", file=err)
     config = SessionConfig(maxstart=args.restarts, seed=args.seed,
                            gather_mode=args.gather_mode, c_max=args.cmax,
-                           use_mesh=args.mesh, compat_z=args.compat_z,
-                           backend=args.backend)
+                           use_mesh=args.mesh, compat_z=args.compat_z)
 
     if args.querydb is not None:
         # query-list mode (cudaSaTabsearch.cu:631-664): LTYPE/LORDER=T,

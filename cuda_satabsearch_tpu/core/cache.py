@@ -1,39 +1,32 @@
-"""Persistent XLA compilation cache setup.
+"""Persistent XLA compilation cache.
 
-The search kernels compile once per (query order, bucket shape) — tens
-of seconds on a remote-compile TPU backend (the analog of the
-reference's ahead-of-time nvcc build: its kernels are compiled once at
-build time, cudaSaTabsearch Makefile:92-116).  Enabling JAX's
-persistent compilation cache makes every process after the first reuse
-the compiled programs, turning one-shot CLI runs from ~30 s warm-up
-into ~1 s.
+The search programs compile once per (query order, bucket shape); the
+cache lets every later process reuse them (the analog of the
+reference's ahead-of-time nvcc build, cudaSaTabsearch Makefile:92-116).
 
-Called by the CLI, SearchSession, and bench entry points; a no-op if
-the cache is already configured or disabled via SATAB_NO_COMPILE_CACHE.
+The cache's path is part of its key, so it is fixed: the directory
+``JAX_COMPILATION_CACHE_DIR`` names when that variable is set (JAX reads
+it itself, and nothing else is changed), otherwise ``.jax_cache`` at the
+root of the checkout (listed in .gitignore).
 """
 
 from __future__ import annotations
 
 import os
 
-_DONE = False
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_compile_cache() -> None:
-    global _DONE
-    if _DONE or os.environ.get("SATAB_NO_COMPILE_CACHE"):
-        return
-    _DONE = True
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at its fixed directory;
+    returns that directory."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
 
-    cache_dir = os.environ.get(
-        "SATAB_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "satabsearch_tpu", "xla"))
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:  # pragma: no cover - best effort; cache is an
-        pass  # optimization, never a correctness requirement
+    if jax.config.jax_compilation_cache_dir != CACHE_DIR:
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    return CACHE_DIR

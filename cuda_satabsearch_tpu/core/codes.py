@@ -6,8 +6,9 @@ pair-score function only ever tests *equality* of the two halves, so we
 keep the halves as separate planes (``hi``/``lo``) rather than packing
 nibbles into one byte as the reference does
 (/root/reference/nvcc_src_current/parsetableaux.c:14-34).  Separate
-planes are the natural TPU layout: the inner scoring kernel compares
-int8 lanes directly with no bit twiddling.
+planes let the engine compare int8 codes directly with no bit
+twiddling (the GPU kernel packs the halves as hi*8 + lo into one byte
+at upload, ops/triton_sa.pack_codes).
 
 Encoding (same value assignments as the reference so that packed DBs are
 interconvertible):

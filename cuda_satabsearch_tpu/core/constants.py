@@ -3,7 +3,7 @@
 Values mirror the reference compile-time configuration
 (/root/reference/nvcc_src_current/saparams.h:15-46) but are runtime
 configuration here -- there is no reason to bake them into a compile on
-TPU; they simply key the jit cache.
+the device; they simply key the jit cache.
 """
 
 from dataclasses import dataclass
@@ -13,9 +13,9 @@ from dataclasses import dataclass
 MAXDIM = 111
 
 # The reference splits the DB at 96 SSEs ("small" fits GPU shared memory,
-# saparams.h:18).  On TPU there is no shared-memory cliff; we instead pack
-# the DB into several padded size buckets, of which 96 is merely one
-# boundary kept for familiarity.  See io/pack.py.
+# saparams.h:18).  Here the DB is packed into several padded size
+# buckets instead, of which 96 is merely one boundary kept for
+# familiarity; the kernel reads every width through L1.  See io/pack.py.
 MAXDIM_SMALL = 96
 
 # Max length of structure labels, e.g. "d1ubia_" (saparams.h:25).

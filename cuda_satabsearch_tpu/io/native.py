@@ -2,10 +2,14 @@
 
 Provides a fast parse+pack path (native twin of the reference's
 parsetableaux.c, SURVEY N7) and batch score statistics (gumbelstats.c,
-N8).  Falls back silently when the shared library has not been built;
-``SATAB_NATIVE=0`` disables it explicitly.
+N8).  ``SATAB_NATIVE=0`` disables it; without a library the pure-Python
+path is used.
 
-Build: ``make -C native`` (produces native/libsatab_io.so).
+The library is built from native/satab_io.cpp alone, at first use
+(``make -C native``, under a file lock, into a temporary name that
+``os.replace`` then moves into place, so concurrent processes leave one
+valid library).  A build attempt and a failed build each print one line
+on stderr.
 """
 
 from __future__ import annotations
@@ -30,8 +34,47 @@ def _lib_path() -> str:
     return os.path.join(root, "native", "libsatab_io.so")
 
 
+def _stale(path: str, src: str) -> bool:
+    return (not os.path.exists(path)
+            or os.path.getmtime(src) > os.path.getmtime(path))
+
+
+def build_library(path: str) -> None:
+    """Build ``path`` from its source unless it is up to date.  Holds a
+    file lock while building and publishes with os.replace, so any
+    number of concurrent callers end with one valid library."""
+    import fcntl
+    import subprocess
+    import sys
+
+    ndir = os.path.dirname(path)
+    src = os.path.join(ndir, "satab_io.cpp")
+    if not os.path.exists(src) or not _stale(path, src):
+        return
+    with open(os.path.join(ndir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(path, src):  # another process built it meanwhile
+            return
+        tmp = f".build.{os.getpid()}.so"
+        print(f"# building {path} (make -C {ndir})", file=sys.stderr)
+        try:
+            r = subprocess.run(["make", "-C", ndir, f"LIB={tmp}"],
+                               capture_output=True, text=True, timeout=300)
+            ok = r.returncode == 0 and os.path.exists(os.path.join(ndir, tmp))
+            why = (r.stderr.strip().splitlines() or ["no output"])[-1]
+        except (OSError, subprocess.SubprocessError) as e:
+            ok, why = False, f"{type(e).__name__}: {e}"
+        if ok:
+            os.replace(os.path.join(ndir, tmp), path)
+        else:
+            print(f"# native build failed ({why}); using the Python "
+                  f"parser", file=sys.stderr)
+            if os.path.exists(os.path.join(ndir, tmp)):
+                os.remove(os.path.join(ndir, tmp))
+
+
 def load_library():
-    """The loaded library or None (missing / disabled)."""
+    """The loaded library or None (disabled / could not be built)."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
@@ -39,20 +82,7 @@ def load_library():
     if os.environ.get("SATAB_NATIVE", "1") == "0":
         return None
     path = _lib_path()
-    src = os.path.join(os.path.dirname(path), "satab_io.cpp")
-    if (os.path.exists(src)
-            and (not os.path.exists(path)
-                 or os.path.getmtime(src) > os.path.getmtime(path))):
-        # the committed .so can be stale relative to the source (or
-        # absent): try one quiet rebuild; any failure just means the
-        # pure-Python path is used
-        import subprocess
-
-        try:
-            subprocess.run(["make", "-C", os.path.dirname(path)],
-                           capture_output=True, timeout=120)
-        except Exception:
-            pass
+    build_library(path)
     if not os.path.exists(path):
         return None
     try:

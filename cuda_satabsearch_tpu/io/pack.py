@@ -1,14 +1,12 @@
-"""Pack parsed entries into padded, size-bucketed dense arrays for TPU.
+"""Pack parsed entries into padded, size-bucketed dense arrays.
 
 Where the reference splits the DB into exactly two size classes driven by
 the GPU shared-memory limit (small <= 96 / large <= 111,
-cudaSaTabsearch.cu:890-1270), on TPU the constraint is different: the
-vector unit operates on fixed 8x128 registers, so the win comes from
-padding each entry to the smallest *bucket* cap and batching entries of
-a bucket together.  The search engine lays state out as (dim, chain)
-with chains in the 128-wide lane dimension, so a bucket of cap ``d``
-costs ceil(d/8) sublane groups per vector op -- a 16-cap bucket is ~7x
-cheaper per iteration than the 112-cap bucket.
+cudaSaTabsearch.cu:890-1270), here each entry is padded to the smallest
+*bucket* cap and the entries of a bucket are searched together: the
+per-move candidate work of both the GPU kernel and the XLA engine is
+proportional to the bucket cap, so a 16-cap entry costs a fraction of a
+112-cap one.
 
 Scores are reassembled into original file order via each bucket's
 ``index`` array.
@@ -24,14 +22,13 @@ from ..core.constants import MAXDIM
 from ..core.codes import TYPE_PAD
 from .parser import TableauEntry
 
-# Default bucket caps.  Must be ascending multiples of 8 (the VPU
-# sublane width); the last must be >= MAXDIM.  The 8-wide bucket
-# matters: ~35-40% of real DB entries (ASTRAL size mix, median ~10
-# SSEs) have <= 8 SSEs, and the 8-wide layout packs twice as many
-# entries per kernel grid step as the 16-wide one.  The intermediate
-# caps (24/48/80) cut per-entry padding waste for mid-size entries —
-# SA-kernel row work is proportional to the bucket cap, and e.g. the
-# 17-32-SSE population (mean ~22) mostly fits in 24.
+# Default bucket caps.  Must be ascending; the last must be >= MAXDIM.
+# The 8-wide bucket matters: ~35-40% of real DB entries (ASTRAL size
+# mix, median ~10 SSEs) have <= 8 SSEs.  The intermediate caps (24/48/
+# 80) cut per-entry padding waste for mid-size entries — SA row work is
+# proportional to the bucket cap, and e.g. the 17-32-SSE population
+# (mean ~22) mostly fits in 24.  The GPU kernel pads its register tiles
+# to powers of two but reads the tables at the bucket's own cap.
 DEFAULT_BUCKETS = (8, 16, 24, 32, 48, 64, 80, 112)
 
 # Padding value for distance matrices: far beyond MXSSED so a padded lane
@@ -102,11 +99,13 @@ class PackedQuery:
 def quantize_dmat(d: np.ndarray) -> np.ndarray:
     """Round distances to bfloat16 resolution (stored as float32).
 
-    A deliberate spec-level choice of this TPU-native design: with every
-    distance exactly representable in bf16, the kernel's one-hot MXU
-    fetches are EXACT at the MXU's native single-pass bf16 speed — no
-    multi-pass f32 emulation — and the engine/golden/Pallas bitwise
-    contract holds on every backend.  Cost: ~0.4% relative rounding on
+    A spec-level choice inherited from an earlier matrix-unit design
+    (one-hot fetches were exact only on the bf16 grid); every
+    implementation here (golden model, engine, GPU kernel) sees the
+    same quantized values, so their bitwise contract holds on every
+    backend.  Nothing on the GPU path needs it any more; removing it
+    changes scores and needs the acceptance gate re-run (ROADMAP).
+    Cost: ~0.4% relative rounding on
     values whose ASCII source only carries ~3 decimals anyway; the only
     behavioral effect is on |d1 - d2| <= MXSSED (4.0 A) decisions within
     a fraction of an Angstrom of the threshold (ranking parity vs the

@@ -1,130 +1,83 @@
 """Mesh load-balance accounting for the entry-sharded DB.
 
-The framework shards work by giving every device E/ndev rows of EVERY
-padded chunk (ops/pallas_search.prepare_bucket_pallas2), so per-shard
-device work is equal BY CONSTRUCTION — all entries in a chunk run the
-same bucket cap, restart count, and iteration schedule.  This module
-turns that claim into numbers: per-shard work under the real chunk
-plan, the padding overhead the plan pays for its balance, and what the
+Under a mesh every bucket is padded to a multiple of the device count
+(``pack_database(pad_to=...)``) and each device takes an equal slice of
+EVERY bucket, so per-device work is equal BY CONSTRUCTION: all entries
+of a bucket run the same width, restart count and iteration schedule.
+This module turns that claim into numbers counted from shapes: per-shard
+work under that split, the padding overhead it pays, and what the
 imbalance WOULD be under a naive contiguous entry split (the obvious
-alternative, which the reference's multi-GPU story would inherit from
-a per-card DB partition).
+alternative, which the reference's multi-GPU story would inherit from a
+per-card DB partition).
 
-This is the quantifiable leg of the >85% multi-host scaling-efficiency
-target (BASELINE.md): with per-shard work exactly equal, scaling
-efficiency is bounded by collectives + the slowest chip, not by the
-partition.
+Work is counted, not timed: one unit is one SA iteration of one chain
+on one DB SSE row, so an entry padded to width ``w`` searched with
+``restarts`` restarts of ``maxiter`` moves costs
+``w * restarts * maxiter`` units.  No device rate enters.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# Measured single-chip rates per bucket cap (M entry-it/s, TPU v5
-# lite, round-5 dgp kernel, scripts/sweep_dgp.py — see PERF.md tuning
-# table).  Used to convert entry-iterations into estimated device time
-# so per-shard work is weighted by how SLOW its widths actually are.
-RATE_M_IT_S = {8: 1785.0, 16: 1466.0, 24: 1181.0, 32: 983.0,
-               48: 748.0, 64: 595.0, 80: 540.0, 112: 388.0}
-
-
-def _rate(dim: int) -> float:
-    if dim in RATE_M_IT_S:
-        return RATE_M_IT_S[dim]
-    # interpolate in 1/rate (per-iteration cost is ~linear in width)
-    caps = sorted(RATE_M_IT_S)
-    lo = max([c for c in caps if c <= dim], default=caps[0])
-    hi = min([c for c in caps if c >= dim], default=caps[-1])
-    if lo == hi:
-        return RATE_M_IT_S[lo]
-    f = (dim - lo) / (hi - lo)
-    inv = (1 - f) / RATE_M_IT_S[lo] + f / RATE_M_IT_S[hi]
-    return 1.0 / inv
-
 
 def balance_report(db, ndev: int, restarts: int = 128,
-                   maxiter: int = 100, chunk_entries: int | None = None
-                   ) -> dict:
+                   maxiter: int = 100) -> dict:
     """Per-shard work accounting for a PackedDB on an ndev-device mesh.
 
-    Returns (all "work" in estimated device-milliseconds; iterations in
-    millions of entry-iterations):
-      per_shard_ms        [ndev] — chunk-split sharding (ours)
-      imbalance           max/mean - 1 over per_shard_ms
-      per_shard_naive_ms  [ndev] — contiguous file-order entry split
-      naive_imbalance     max/mean - 1 under that split
-      padding_overhead    padded work / real work - 1 (the price the
-                          chunk plan pays: pad entries to bucket caps
-                          and chunk counts to MAX_GROUP*ndev quanta)
-      iters_m_per_shard   [ndev] raw padded entry-iterations (M)
-
-    ``chunk_entries`` mirrors the device preparation's knob
-    (SessionConfig.chunk_entries): pass it when modelling a
-    non-default session so the accounting walks exactly the chunks
-    that will run.
+    Returns (work in millions of width-iterations, see module doc):
+      per_shard_work        [ndev] — bucket-split sharding (ours)
+      imbalance             max/mean - 1 over per_shard_work
+      per_shard_naive_work  [ndev] — contiguous file-order entry split
+      naive_imbalance       max/mean - 1 under that split
+      padding_overhead      padded work / real work - 1 (entries padded
+                            to their bucket's width, buckets padded to
+                            a multiple of ndev)
+      entries_per_shard     [ndev] padded entries each device searches
     """
-    from .pallas_search import CHUNK_ENTRIES, chunk_layout
-
-    if chunk_entries is None:
-        chunk_entries = CHUNK_ENTRIES
-
-    def ms(n_iters: float, dim: int) -> float:
-        # rate is M it/s: time_ms = iters / (rate * 1e6) * 1e3
-        return n_iters / _rate(dim) * 1e-3
-
-    it_per_entry = restarts * maxiter
+    it = restarts * maxiter / 1e6
     per_shard = np.zeros(ndev)
-    iters = np.zeros(ndev)
-    padded_ms = 0.0
-    real_ms = 0.0
+    entries = np.zeros(ndev)
+    real = 0.0
     for b in db.buckets:
-        for _s, _e, E in chunk_layout(b.size, ndev, chunk_entries,
-                                      d2=b.dim):
-            # every shard takes E/ndev rows of this chunk; padded rows
-            # (chunk quanta + any pad_to entries) are genuine device
-            # work — exactly why padding_overhead is worth reporting
-            local = E / ndev
-            per_shard += ms(local * it_per_entry, b.dim)
-            iters += local * it_per_entry / 1e6
-            padded_ms += ms(E * it_per_entry, b.dim)
-        # real work: each genuine entry (index >= 0) at its own
-        # unpadded width's interpolated rate
-        for o, i in zip(np.asarray(b.orders), np.asarray(b.index)):
-            if int(np.int32(i)) >= 0:
-                real_ms += ms(it_per_entry, max(int(o), 1))
+        if b.size % ndev:
+            raise ValueError(f"bucket of width {b.dim} holds {b.size} "
+                             f"entries, not a multiple of {ndev}; pack "
+                             f"with pad_to={ndev}")
+        per_shard += b.size // ndev * b.dim * it
+        entries += b.size // ndev
+        valid = np.asarray(b.index) >= 0
+        real += float(np.asarray(b.orders)[valid].sum()) * it
 
     # naive alternative: slice file-order entries into ndev contiguous
     # slabs, each entry at its bucket's padded width
-    dims = np.empty(db.nentries)
+    dims = np.zeros(db.nentries)
     for b in db.buckets:
-        for i in np.asarray(b.index):
-            if 0 <= i < db.nentries:
-                dims[i] = b.dim
-    naive = np.zeros(ndev)
+        idx = np.asarray(b.index)
+        dims[idx[idx >= 0]] = b.dim
     bounds = np.linspace(0, db.nentries, ndev + 1).astype(int)
-    for d in range(ndev):
-        seg = dims[bounds[d]:bounds[d + 1]]
-        naive[d] = sum(restarts * maxiter / _rate(w) * 1e-3 for w in seg)
+    naive = np.array([dims[bounds[d]:bounds[d + 1]].sum() * it
+                      for d in range(ndev)])
 
     def imb(x):
         return float(x.max() / x.mean() - 1.0) if x.size and x.mean() else 0.0
 
     return {
         "ndev": ndev,
-        "per_shard_ms": per_shard.round(3).tolist(),
+        "per_shard_work": per_shard.tolist(),
         "imbalance": imb(per_shard),
-        "per_shard_naive_ms": naive.round(3).tolist(),
+        "per_shard_naive_work": naive.tolist(),
         "naive_imbalance": imb(naive),
-        "padding_overhead": float(padded_ms / real_ms - 1.0)
-        if real_ms else 0.0,
-        "iters_m_per_shard": iters.round(3).tolist(),
+        "padding_overhead": float(per_shard.sum() / real - 1.0)
+        if real else 0.0,
+        "entries_per_shard": entries.tolist(),
     }
 
 
 def format_report(rep: dict) -> str:
     return (f"mesh balance ({rep['ndev']} devices): per-shard work "
-            f"{rep['per_shard_ms'][0]:.1f} ms x {rep['ndev']} "
-            f"(imbalance {rep['imbalance'] * 100:.2f}%), "
+            f"{rep['per_shard_work'][0]:.1f} M width-iterations x "
+            f"{rep['ndev']} (imbalance {rep['imbalance'] * 100:.2f}%), "
             f"vs naive contiguous split "
             f"{rep['naive_imbalance'] * 100:.1f}% imbalanced; "
             f"padding overhead {rep['padding_overhead'] * 100:.1f}%")

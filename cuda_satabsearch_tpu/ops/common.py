@@ -1,102 +1,25 @@
-"""Shared layout helpers for the SA search kernels.
+"""The RNG slot schedule shared by every SA implementation.
 
-The query-side padding quantum, packed-code layout, and uniform-stream
-generation shared by the XLA engine (ops/engine.py), the Pallas kernel
-(ops/pallas_sa2.py), and the search drivers (ops/pallas_search.py).
+The golden model (ops/golden.py), the XLA engine (ops/engine.py) and the
+GPU kernel (ops/triton_sa.py) consume one uniform stream per restart at
+fixed slots, which is what lets them be tested against each other
+bitwise.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
-import numpy as np
-
 from ..core.constants import DEFAULTS
-
-C_LANES = 128  # chains per pass: the VPU lane width
-
-# Entries per compiled kernel dispatch — shared by the Pallas chunk
-# plan (ops/pallas_search), the XLA engine chunking (ops/search), and
-# the load-balance accounting (ops/balance).
-CHUNK_ENTRIES = 128
 
 
 def round8(x: int) -> int:
-    """Query-order padding quantum (TPU sublane width).  Also keys the
-    RNG slot schedule: per restart, slots [0, round8(n1)) feed thinit
-    and slots round8(n1) + 3*it + {0,1,2} feed iteration it — so any
-    query order in the same round8 bucket shares one compiled kernel
-    AND one stream layout (mixed-order query batching)."""
+    """Query-order padding quantum.  Also keys the RNG slot schedule:
+    per restart, slots [0, round8(n1)) feed thinit and slots
+    round8(n1) + 3*it + {0,1,2} feed iteration it — so any query order
+    in the same round8 bucket shares one compiled kernel AND one stream
+    layout (mixed-order query batching)."""
     return max(8, -(-x // 8) * 8)
 
 
 def slots_per_restart(n1: int, maxiter: int = DEFAULTS.maxiter) -> int:
     """Uniform slots consumed per restart under the n1r schedule."""
     return round8(n1) + 3 * maxiter
-
-
-def pack_tab(tabhi: np.ndarray, tablo: np.ndarray) -> np.ndarray:
-    """Pack hi/lo tableau planes into hi*8 + lo as float32."""
-    return (tabhi.astype(np.float32) * 8.0
-            + tablo.astype(np.float32)).astype(np.float32)
-
-
-def prepare_query(query, n1r: int):
-    """(qtypes_i32[n1r], qtypesv_f32[n1r,1], qtabp_f32, qdmat_f32)
-    padded to n1r; padded type rows get an impossible type."""
-    from ..core.codes import TYPE_PAD
-
-    n1 = query.order
-    qtypes = np.full((n1r,), TYPE_PAD, np.int32)
-    qtypes[:n1] = query.types
-    qtabp = np.zeros((n1r, n1r), np.float32)
-    qtabp[:n1, :n1] = pack_tab(query.tabhi, query.tablo)
-    qdmat = np.zeros((n1r, n1r), np.float32)
-    qdmat[:n1, :n1] = query.dmat
-    return (qtypes, qtypes.astype(np.float32)[:, None], qtabp, qdmat)
-
-
-@functools.lru_cache(maxsize=None)
-def _make_uniforms_jit(r_seq: int, P: int, c_par: int, n1r: int):
-    from .engine import log_acc_slots
-
-    def gen(keys):
-        def per_entry(key):
-            def per_restart(r):
-                u = jax.random.uniform(jax.random.fold_in(key, r),
-                                       (P, c_par), dtype=jnp.float32)
-                u = log_acc_slots(u, n1r)
-                if c_par < C_LANES:
-                    u = jnp.pad(u, ((0, 0), (0, C_LANES - c_par)))
-                return u
-            return jax.vmap(per_restart)(jnp.arange(r_seq, dtype=jnp.uint32))
-
-        return jax.vmap(per_entry)(keys)
-
-    return jax.jit(gen)
-
-
-def make_uniforms(keys, r_seq: int, P: int, c_par: int = C_LANES,
-                  n1r: int | None = None):
-    """uniforms[e, r, :, :c_par] = uniform(fold_in(keys[e], r),
-    (P, c_par)) — exactly the engine's per-restart stream
-    (ops/engine.py restart_body), so kernel, engine, and golden model
-    consume identical randomness for any chain count.  Lanes beyond
-    c_par are zero-padded; the kernel masks those chains out.
-
-    P must be slots_per_restart(n1); the Metropolis-acceptance slots
-    carry ln(u), not u (see engine.log_acc_slots).
-
-    jitted and cached per shape: an eager nested vmap would RETRACE on
-    every call (~100 ms of pure Python per search chunk).
-
-    ``n1r`` (the round8 query order — the slot-schedule base) defaults
-    to P - 3*DEFAULTS.maxiter, which is only correct for DEFAULT
-    params; pass it explicitly when P was built with a non-default
-    SAParams.maxiter, or the ln(u) acceptance slots land in the wrong
-    rows."""
-    if n1r is None:
-        n1r = P - 3 * DEFAULTS.maxiter
-    return _make_uniforms_jit(r_seq, P, c_par, n1r)(keys)

@@ -1,17 +1,19 @@
 """Vectorized batched simulated-annealing engine (pure JAX).
 
-TPU-first redesign of the reference's thread-per-chain CUDA kernel
-(cudaSaTabsearch_kernel.cu:806-1236).  Instead of 16384 scalar threads
+The portable, plain-XLA form of the reference's thread-per-chain CUDA
+kernel (cudaSaTabsearch_kernel.cu:806-1236), and the reference the GPU
+kernel (ops/triton_sa.py) is tested against.  Instead of scalar threads
 with divergent control flow, the whole population of SA chains for one
 DB entry advances in lockstep as masked vector operations:
 
-* layout is (sse_dim, chain) with the chain axis minor, so chains fill
-  the 128-wide TPU lane dimension and per-entry SSE dimensions occupy
-  sublanes -- a size-16 bucket entry costs ~7x less per iteration than a
-  112-cap entry (the TPU answer to the reference's small/large split);
+* layout is (sse_dim, chain) with the chain axis minor; per-entry SSE
+  dimensions are padded only to the entry's size bucket, so a 16-wide
+  entry costs a fraction of a 112-wide one per iteration (the answer
+  to the reference's small/large split);
 * all data-dependent scans of the reference (the LORDER window walk, the
   candidate list build in randtypeind, the O(n1) delta loop) become
-  masked lane-parallel reductions -- divergence-free by construction;
+  masked reductions over the chain axis -- divergence-free by
+  construction;
 * randomness is counter-based threefry keyed by (entry, restart); the
   per-restart uniform block has a fixed slot schedule so the scalar
   golden model (ops/golden.py) reproduces any chain bitwise;
@@ -22,8 +24,8 @@ DB entry advances in lockstep as masked vector operations:
 Irregular memory access (the only non-SIMD-friendly part of the
 algorithm) is isolated in two gather helpers with switchable
 implementations ("take" = native XLA gather, "onehot" = one-hot
-contraction that maps onto the MXU) so the best lowering can be chosen
-per backend by measurement.
+contraction, a matrix product) so the lowering can be chosen per
+platform by measurement (ops/search.resolve_gather_mode).
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ def log_acc_slots(uniforms, n1: int, axis: int = 0):
     their natural log, in place of the raw uniform.
 
     The acceptance test is then ``delta > temp * ln_u`` — pure mul/
-    compare arithmetic, which is bit-identical across NumPy, XLA:CPU,
-    XLA:TPU, and Mosaic — instead of ``exp(delta/temp) > u``, whose
+    compare arithmetic, which is bit-identical across NumPy, XLA on the
+    CPU and the GPU, and the Pallas kernel — instead of
+    ``exp(delta/temp) > u``, whose
     exp lowering differs by ulps between backends and flips boundary
     decisions (mathematically the two forms are equivalent; the
     reference itself uses approximate expf via --use_fast_math,
@@ -81,13 +84,16 @@ def _make_gathers(d2: int, gather_mode: str):
         """rows[d, c] = table[idx[c], d] for a symmetric [d2, d2] table.
 
         "take": native gather along the minor axis.
-        "onehot": MXU contraction table^T @ onehot(idx).
+        "onehot": contraction table^T @ onehot(idx), at full f32
+        precision (a TF32 product would round distances that are not
+        on its grid).
         """
         idxc = jnp.clip(idx, 0, d2 - 1)
         if gather_mode == "onehot":
             oh = (iota2 == idxc[None, :]).astype(F32)  # [d2, C]
             out = lax.dot_general(table.astype(F32), oh,
                                   (((0,), (0,)), ((), ())),
+                                  precision=lax.Precision.HIGHEST,
                                   preferred_element_type=F32)
             return out if table.dtype == F32 else out.astype(table.dtype)
         return jnp.take(table, idxc, axis=1)
@@ -130,7 +136,7 @@ def make_entry_search(n1: int, d2: int, c_par: int, r_seq: int,
     def entry_search(qtypes, qtabhi, qtablo, qdmat,
                      types2, tabhi2, tablo2, dmat2, n2, key):
         # compute in int32 (int8 storage is cast once here; XLA keeps the
-        # HBM copy int8 and fuses the widening into consumers)
+        # device copy int8 and fuses the widening into consumers)
         qtypes = qtypes.astype(I32)
         qtabhi = qtabhi.astype(I32)
         qtablo = qtablo.astype(I32)

@@ -1,7 +1,8 @@
 """High-level search orchestration: buckets, chunking, key derivation.
 
-Drives the vectorized engine (ops/engine.py) over a PackedDB, mirroring
-the role of the reference host driver's per-query launch loop
+Drives the SA kernel (ops/triton_sa.py) on the GPU, or the vectorized
+engine (ops/engine.py) elsewhere, over a PackedDB, mirroring the role
+of the reference host driver's per-query launch loop
 (cudaSaTabsearch.cu:987-1115) but with size buckets instead of the
 small/large two-pass split, and deterministic per-entry RNG keys derived
 from the entry's position in the database file (stable across bucketing
@@ -23,22 +24,19 @@ from .engine import make_bucket_search
 
 DEFAULT_SEED = 1234  # the reference's fixed seed (cudaSaTabsearch.cu:263,:871)
 
-# Entries per compiled call — ONE shared quantum for both backends
-# (the Pallas path and the balance harness read the same constant from
-# pallas_search).  Bounds XLA compile time (which grows superlinearly
-# with the vmapped batch on the TPU backend: ~4 s at 128 entries vs
-# ~400 s at 417, measured on v5e) and temporary memory; chunks are
-# padded to a common size so each bucket shape compiles once.
-from .common import CHUNK_ENTRIES as _CHUNK_ENTRIES  # noqa: E402
+# Entries per compiled engine call: bounds compile time and temporary
+# memory; chunks are padded to a common size so each bucket shape
+# compiles once.
+_CHUNK_ENTRIES = 128
 
 
 def resolve_gather_mode(gather_mode: str) -> str:
-    """'auto' -> 'onehot' on TPU-like backends (per-lane gathers are
-    ~20x slower than one-hot MXU/VPU contractions there, measured on
-    v5e), 'take' on CPU where native gathers win."""
+    """'auto' -> native gathers ('take') on every platform: 'onehot'
+    builds an [n1, d2, C] mask per fetch, which no GPU or CPU
+    measurement favours (PERF.md)."""
     if gather_mode != "auto":
         return gather_mode
-    return "take" if jax.default_backend() == "cpu" else "onehot"
+    return "take"
 
 
 @dataclass
@@ -58,10 +56,10 @@ class SearchResult:
 def choose_chains(maxstart: int, c_max: int = 128) -> tuple[int, int]:
     """Split total restarts into (parallel chains, sequential restarts).
 
-    The chain axis fills TPU lanes, so we prefer the largest divisor of
-    ``maxstart`` that is <= c_max (the reference requires maxstart to be
-    a multiple of its 128-thread block for the same reason,
-    cudaSaTabsearch.cu:34-35).
+    The chain axis is the kernel's thread axis, so we prefer the largest
+    divisor of ``maxstart`` that is <= c_max (the reference requires
+    maxstart to be a multiple of its 128-thread block for the same
+    reason, cudaSaTabsearch.cu:34-35).
     """
     if maxstart < 1:
         raise ValueError("maxstart must be >= 1")
@@ -182,15 +180,64 @@ def _sharding_mesh(sharding):
     return sharding.mesh
 
 
-def resolve_backend(backend: str, sharding=None) -> str:
-    """'auto' -> the Pallas kernel on TPU-like backends (hand-fused
-    VMEM-resident hot loop; under a mesh it runs SPMD via shard_map),
-    the XLA engine on CPU."""
+def resolve_backend(backend: str = "auto") -> str:
+    """'auto' -> the SA kernel (ops/triton_sa.py) on the GPU, the XLA
+    engine (ops/engine.py) on every other platform.  Explicit names
+    ("triton", "xla") let tests and the kernel-vs-engine comparison pick
+    one; "triton" off the GPU runs in Pallas interpret mode."""
+    if backend not in ("auto", "triton", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
     if backend != "auto":
         return backend
-    if jax.default_backend() == "cpu":
-        return "xla"
-    return "pallas"
+    return "triton" if jax.default_backend() == "gpu" else "xla"
+
+
+def search_many_db(queries, db: PackedDB, *, query_tags,
+                   maxstart: int = DEFAULT_MAXSTART, lorder: bool = True,
+                   seed: int = DEFAULT_SEED, c_max: int = 128,
+                   gather_mode: str = "auto", params: SAParams = DEFAULTS,
+                   device_db: dict | None = None, sharding=None,
+                   backend: str = "auto",
+                   lsoln: bool = True) -> list[SearchResult]:
+    """Search several queries; results in query order.
+
+    On the kernel path the queries are grouped by round8(order) -- the
+    kernel is specialized per 8-padded order and takes exact orders at
+    run time -- and each group is ONE device program and ONE drain, all
+    groups enqueued before the first drain.  The engine runs the queries
+    one after another."""
+    use = resolve_backend(backend)
+    tags = list(query_tags)
+    if use == "xla":
+        return [search_db(q, db, maxstart=maxstart, lorder=lorder, seed=seed,
+                          query_tag=t, c_max=c_max, gather_mode=gather_mode,
+                          params=params, device_db=device_db,
+                          sharding=sharding, backend=use, lsoln=lsoln)
+                for q, t in zip(queries, tags)]
+    from . import triton_sa
+    from .common import round8
+
+    groups: dict[int, list[int]] = {}
+    for i, q in enumerate(queries):
+        groups.setdefault(round8(q.order), []).append(i)
+    arrays = None
+    if device_db is not None:
+        arrays = {bi: d["triton"] for bi, d in device_db.items()}
+    handles = [(idxs, triton_sa.dispatch(
+        [queries[i] for i in idxs], db, maxstart=maxstart, lorder=lorder,
+        seed=seed, query_tags=[tags[i] for i in idxs], c_max=c_max,
+        params=params, device_db=arrays, lsoln=lsoln,
+        mesh=_sharding_mesh(sharding),
+        interpret=jax.default_backend() != "gpu"))
+        for idxs in groups.values()]
+    out: list = [None] * len(queries)
+    for idxs, h in handles:
+        for i, (scores, maps) in zip(idxs, triton_sa.assemble(h)):
+            out[i] = SearchResult(scores=scores, ssemaps=maps,
+                                  names=db.names, orders=db.orders,
+                                  query_order=queries[i].order,
+                                  maxstart=maxstart)
+    return out
 
 
 def search_db(query: PackedQuery, db: PackedDB, *,
@@ -201,22 +248,15 @@ def search_db(query: PackedQuery, db: PackedDB, *,
               device_db: dict | None = None, sharding=None,
               backend: str = "auto", lsoln: bool = True) -> SearchResult:
     """Search the whole packed DB; results in database file order."""
+    if resolve_backend(backend) == "triton":
+        return search_many_db(
+            [query], db, query_tags=[query_tag], maxstart=maxstart,
+            lorder=lorder, seed=seed, c_max=c_max, params=params,
+            device_db=device_db, sharding=sharding, backend="triton",
+            lsoln=lsoln)[0]
     n1 = query.order
     scores = np.zeros((db.nentries,), np.int32)
     maps = np.full((db.nentries, n1), -1, np.int32)
-    use = resolve_backend(backend, sharding)
-    if use == "pallas":
-        from .pallas_search import (assemble_db_pallas2,
-                                    dispatch_db_pallas2)
-
-        mesh = _sharding_mesh(sharding)
-        scores, maps = assemble_db_pallas2(dispatch_db_pallas2(
-            query, db, maxstart=maxstart, lorder=lorder, seed=seed,
-            query_tag=query_tag, c_max=c_max, params=params,
-            device_db=device_db, lsoln=lsoln, mesh=mesh))
-        return SearchResult(scores=scores, ssemaps=maps, names=db.names,
-                            orders=db.orders, query_order=n1,
-                            maxstart=maxstart)
     for bi, bucket in enumerate(db.buckets):
         darr = device_db.get(bi) if device_db is not None else None
         s, m = search_bucket(
@@ -224,7 +264,7 @@ def search_db(query: PackedQuery, db: PackedDB, *,
             lorder=lorder, seed=seed, query_tag=query_tag,
             c_max=c_max, gather_mode=gather_mode,
             params=params,
-            device_arrays=darr.get("xla") if darr else None,
+            device_arrays=darr["xla"] if darr else None,
             sharding=sharding)
         valid = bucket.index >= 0  # drop mesh-padding entries
         scores[bucket.index[valid]] = s[valid]
@@ -234,42 +274,35 @@ def search_db(query: PackedQuery, db: PackedDB, *,
 
 
 def upload_db(db: PackedDB, device=None, sharding=None,
-              backend: str = "auto", chunk_entries: int | None = None
-              ) -> dict:
+              backend: str = "auto") -> dict:
     """Pre-upload packed DB arrays to device(s) once (the analog of the
     reference's one-time cudaMemcpy3D of the whole DB,
     cudaSaTabsearch.cu:924-963).
-    Returns {bucket_idx: {"xla": arrays, "pallas": arrays}} with only
-    the resolved backend's format materialized.
+    Returns {bucket_idx: {backend: arrays}} in the resolved backend's
+    layout.
 
     If ``sharding`` is given (a callable bucket_size -> jax.sharding
     .Sharding or a fixed Sharding), arrays are placed with their entry
     axis sharded across the mesh.
     """
-    use = resolve_backend(backend, sharding)
+    use = resolve_backend(backend)
     out = {}
     for bi, b in enumerate(db.buckets):
+        s = sharding(b.size) if callable(sharding) else sharding
+        if use == "triton":
+            from .triton_sa import prepare_bucket
+
+            out[bi] = {use: prepare_bucket(b, device=device, sharding=s)}
+            continue
+
         def put(x):
-            if sharding is not None:
-                s = sharding(b.size) if callable(sharding) else sharding
+            if s is not None:
                 return jax.device_put(jnp.asarray(x), s)
             if device is not None:
                 return jax.device_put(jnp.asarray(x), device)
             return jnp.asarray(x)
 
-        entry = {}
-        if use == "pallas":
-            from .pallas_search import prepare_bucket_pallas2
-
-            mesh = _sharding_mesh(sharding)
-            kw = {}
-            if chunk_entries:
-                kw["chunk_entries"] = chunk_entries
-            entry["pallas"] = prepare_bucket_pallas2(b, device=device,
-                                                     mesh=mesh, **kw)
-        else:
-            entry["xla"] = {"types": put(b.types), "tabhi": put(b.tabhi),
-                            "tablo": put(b.tablo), "dmat": put(b.dmat),
-                            "orders": put(b.orders)}
-        out[bi] = entry
+        out[bi] = {use: {"types": put(b.types), "tabhi": put(b.tabhi),
+                         "tablo": put(b.tablo), "dmat": put(b.dmat),
+                         "orders": put(b.orders)}}
     return out

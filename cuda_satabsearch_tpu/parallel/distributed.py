@@ -21,7 +21,7 @@ def initialize(coordinator_address: str | None = None,
     """Initialize jax.distributed (no-op when single-process).
 
     With no arguments, relies on the cluster environment
-    (TPU pod metadata / SLURM) exactly like jax.distributed.initialize.
+    (e.g. SLURM) exactly like jax.distributed.initialize.
     """
     if num_processes == 1:
         return

@@ -5,14 +5,15 @@ independent SLURM jobs (SURVEY §2.4).  Here distribution is first-class:
 a 1-D ``jax.sharding.Mesh`` over all local (or all global) devices, the
 packed DB's entry axis sharded across it, queries replicated, and the
 per-entry score vector produced sharded and gathered on the host --
-the TPU analog of the reference's one-time cudaMemcpy3D of the whole DB
+the multi-card analog of the reference's one-time cudaMemcpy3D of the DB
 (cudaSaTabsearch.cu:924-963) amortized across a query stream.
 
 Because the SA search is embarrassingly parallel over DB entries, no
-collectives are needed inside the kernel at all: sharding the inputs is
-enough for XLA's SPMD partitioner to place each entry's chains on its
-shard's device.  The only cross-device traffic is the [N]-sized int32
-score gather at the end, which is trivial bandwidth on ICI.
+collectives are needed inside the kernel at all: the engine's inputs
+are sharded and XLA's SPMD partitioner places each entry's chains on its
+shard's device; the GPU kernel runs under jax.shard_map on each card's
+slice.  The only cross-device traffic is the [N]-sized int32 score
+gather at the end, trivial bandwidth over NVLink.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the
 mesh with ``devices=jax.devices()``; every process executes the same

@@ -1,6 +1,6 @@
 """Search session: a resident packed+uploaded DB and a query stream.
 
-The TPU analog of the reference driver's lifecycle (cudaSaTabsearch.cu
+The analog of the reference driver's lifecycle (cudaSaTabsearch.cu
 main, :573-1340): load DB once, copy it to the device once, then run any
 number of queries against it, each costing only a tiny query upload plus
 the kernel.  Used by the CLI (both stdin and query-list modes), the
@@ -18,7 +18,8 @@ from .core.constants import DEFAULT_MAXSTART, SAParams, DEFAULTS, MAXDIM
 from .io.pack import (DEFAULT_BUCKETS, PackedDB, PackedQuery, pack_database,
                       pack_query)
 from .io.parser import TableauEntry, read_database
-from .ops.search import SearchResult, search_db, upload_db
+from .ops.search import (SearchResult, resolve_backend, search_db,
+                         search_many_db, upload_db)
 from .stats.gumbel import score_stats
 
 
@@ -31,23 +32,24 @@ class SessionConfig:
     buckets: tuple = DEFAULT_BUCKETS
     maxdim: int = MAXDIM
     params: SAParams = DEFAULTS
-    backend: str = "auto"  # "pallas" | "xla" | "auto"
     use_mesh: bool = False  # shard the entry axis over all devices
     compat_z: bool = False  # reproduce the reference's int-truncated z
     devices: object = None  # optional explicit device list for the mesh
-    chunk_entries: int = 0  # entries per pallas kernel dispatch
-    # (0 = the pallas_search.CHUNK_ENTRIES default)
 
 
 class SearchSession:
     def __init__(self, dbfile: str, config: SessionConfig | None = None,
-                 entries: list[TableauEntry] | None = None):
+                 entries: list[TableauEntry] | None = None, *,
+                 backend: str = "auto"):
+        """``backend``: "auto" picks the implementation by platform
+        (ops.search.resolve_backend); tests and the kernel-vs-engine
+        comparison name one explicitly."""
         from .core.cache import enable_compile_cache
-        from .core.warmup import warm_backend
 
         enable_compile_cache()  # persist compiled kernels across runs
         self.config = config or SessionConfig()
         self.dbfile = dbfile
+        self.backend = resolve_backend(backend)
 
         self.sharding = None
         pad_to = 1
@@ -78,17 +80,9 @@ class SearchSession:
                     self.config.buckets, pad_to=pad_to)
         self.load_ms = (time.perf_counter() - t0) * 1000.0
 
-        # absorb the per-process remote-compile session init with a
-        # one-op kernel so the real search programs compile at their
-        # normal ~1-5 s cost (core/warmup.py; no-op on CPU/local TPU).
-        # AFTER the DB load: a missing/corrupt dbfile must fail fast,
-        # not after a ~2 min device warm-up.
-        self.warmup_s = warm_backend()
-
         t0 = time.perf_counter()
         self.device_db = upload_db(self.db, sharding=self.sharding,
-                                   backend=self.config.backend,
-                                   chunk_entries=self.config.chunk_entries)
+                                   backend=self.backend)
         self.upload_ms = (time.perf_counter() - t0) * 1000.0
         self._query_tag = 0
 
@@ -106,53 +100,18 @@ class SearchSession:
 
     def search_many(self, queries, *, lorder: bool = True,
                     lsoln: bool = False) -> list[SearchResult]:
-        """Pipelined multi-query search (Pallas backend): dispatch all
-        queries asynchronously, drain once.  Sustains device throughput
-        when per-dispatch host latency is significant (remote tunnels,
-        many small queries).  Falls back to sequential search elsewhere.
-        """
-        from .ops.search import resolve_backend
-
+        """Search a query stream.  On the kernel path each round8 order
+        group is one device program, and every group is enqueued before
+        the first drain (ops.search.search_many_db)."""
         cfg = self.config
-        if resolve_backend(cfg.backend, self.sharding) != "pallas":
-            return [self.search(q, lorder=lorder, lsoln=lsoln)
-                    for q in queries]
-        from .ops.pallas_search import (assemble_db_pallas2_multi,
-                                        dispatch_db_pallas2_multi)
-
-        # group queries by round8(SSE count) — the kernel is
-        # specialized per 8-padded order bucket and takes exact orders
-        # at runtime, so real mixed-order streams (multiquery.input,
-        # query lists) batch into a handful of device programs; each
-        # group is ONE device program + ONE drain
-        from .ops.common import round8
-
-        order_groups: dict[int, list[int]] = {}
-        for i, q in enumerate(queries):
-            order_groups.setdefault(round8(q.order), []).append(i)
-
-        handles = []
-        for order, idxs in order_groups.items():
-            tags = []
-            for _ in idxs:
-                tags.append(self._query_tag)
-                self._query_tag += 1
-            handles.append((idxs, dispatch_db_pallas2_multi(
-                [queries[i] for i in idxs], self.db,
-                maxstart=cfg.maxstart, lorder=lorder, seed=cfg.seed,
-                query_tags=tags, c_max=cfg.c_max, params=cfg.params,
-                device_db=self.device_db, lsoln=lsoln,
-                mesh=self.sharding.mesh if self.sharding is not None
-                else None)))
-        out: list = [None] * len(queries)
-        for idxs, h in handles:
-            for i, (scores, maps) in zip(idxs,
-                                         assemble_db_pallas2_multi(h)):
-                out[i] = SearchResult(
-                    scores=scores, ssemaps=maps, names=self.db.names,
-                    orders=self.db.orders, query_order=queries[i].order,
-                    maxstart=cfg.maxstart)
-        return out
+        tags = list(range(self._query_tag, self._query_tag + len(queries)))
+        self._query_tag += len(queries)
+        return search_many_db(
+            queries, self.db, query_tags=tags, maxstart=cfg.maxstart,
+            lorder=lorder, seed=cfg.seed, c_max=cfg.c_max,
+            gather_mode=cfg.gather_mode, params=cfg.params,
+            device_db=self.device_db, sharding=self.sharding,
+            backend=self.backend, lsoln=lsoln)
 
     def search(self, query: PackedQuery, *, lorder: bool = True,
                query_tag: int | None = None,
@@ -165,7 +124,7 @@ class SearchSession:
                          lorder=lorder, seed=cfg.seed, query_tag=query_tag,
                          c_max=cfg.c_max, gather_mode=cfg.gather_mode,
                          params=cfg.params, device_db=self.device_db,
-                         sharding=self.sharding, backend=cfg.backend,
+                         sharding=self.sharding, backend=self.backend,
                          lsoln=lsoln)
 
 

@@ -1,9 +1,9 @@
-// Fast ASCII tableaux+distmatrix database parser and TPU-bucket packer.
+// Fast ASCII tableaux+distmatrix database parser and size-bucket packer.
 //
 // Native twin of cuda_satabsearch_tpu/io/{parser,pack}.py, playing the
 // role the reference's parsetableaux.c (N7 in SURVEY.md) plays for its
 // driver: turn the ASCII DB format into dense packed arrays.  Unlike
-// the reference we pack directly into padded size buckets (the TPU
+// the reference we pack directly into padded size buckets (the device
 // layout) in one pass, and we tokenize on whitespace rather than fixed
 // column strides (parsetableaux.c:193-294 strides misparse >=100 A
 // distances present in real data).

@@ -14,7 +14,7 @@ DB (SURVEY §4.1).  Three layers of evidence:
    (tools/refgolden, reproduces the archived log bitwise) on bundled
    queries at r=128 and r=4096 (tests/fixtures/refgolden/*.out);
 3. our runs — the same queries through SearchSession on the current
-   backend; parity metrics (Spearman / top-k overlap / retrieval AUC
+   platform (the kernel on the GPU, the engine on the CPU); parity metrics (Spearman / top-k overlap / retrieval AUC
    with gold = ref top 5%) must be at or above the noise floor, and
    AUC within 0.01 of the reference GPU's (BASELINE.md's "within 1%").
 
@@ -58,7 +58,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--restarts", type=int, nargs="+", default=[128, 4096])
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--backend", default="auto")
     args = ap.parse_args()
 
     if args.cpu:
@@ -91,14 +90,13 @@ def main():
     # --- layers 2+3 per query/restart
     dbfile = os.path.join(FIX, "tableauxdistmatrixdb.small.ascii")
     print("## This framework vs reference CPU oracle "
-          f"(backend={args.backend})\n")
+          f"(platform={'cpu' if args.cpu else 'default'})\n")
     print("| query | n1 | restarts | spearman | top10 | top50 | auc5 | "
           "ref-GPU auc5 |")
     print("|---|---|---|---|---|---|---|---|")
     rows = []
     for r in args.restarts:
-        config = SessionConfig(maxstart=r, backend=args.backend)
-        session = SearchSession(dbfile, config)
+        session = SearchSession(dbfile, SessionConfig(maxstart=r))
         for qname, n1 in QUERIES.items():
             gold_path = os.path.join(GOLD, f"{qname}_small_r{r}.out")
             if not os.path.exists(gold_path):

@@ -1,20 +1,23 @@
-"""Produce the end-to-end L4 evaluation artifact (VERDICT r2 item 9).
+"""Produce the end-to-end L4 evaluation artifact (eval_artifacts/).
 
 Drives the full product pipeline on real hardware and commits its
 outputs under eval_artifacts/:
 
 1. run the bundled mixed-order multiquery stream
    (tests/fixtures/multiquery.input: 8-, 13- and 101-SSE queries vs
-   the 586-entry DB) through the real CLI (pipelined search_many
-   path) on the default backend, timing the run;
-2. run the same stream on the XLA-engine backend (the portable
-   non-Pallas path) as the comparison row;
+   the 586-entry DB) through the real CLI (search_many path) on the
+   GPU kernel, timing the run;
+2. run the same stream with ``-c`` (the XLA engine on the CPU) as the
+   comparison row;
 3. build a gold-standard file from the reference CPU oracle outputs
    (top 5% by norm2 score, the acceptance-eval convention) for the
    queries with oracle goldens;
 4. evaluate with `python -m cuda_satabsearch_tpu.eval` (AUC table,
    LaTeX rows, slrtab files) and emit the mkquery200timestab.sh-style
    AUC/time/speedup LaTeX table via eval.timestab.
+
+The CLI runs are child processes, one after another; this process
+never initializes a JAX backend, so each child has the card to itself.
 
 Usage: python scripts/make_eval_artifact.py [--restarts 128]
 """
@@ -57,10 +60,8 @@ def build_gold(path: str, frac: float = 0.05) -> list[str]:
 def run_cli(outpath: str, restarts: int, backend_args: list[str]) -> float:
     """Run the real CLI; returns the CLI-reported SEARCH time (its
     'search time N ms' stderr line — dispatch+device+drain for the
-    whole pipelined stream).  Process wall time would instead be
-    dominated by the per-process remote-compile session init
-    (~60-320 s environment cost, see PERF.md), identical for every
-    backend and meaningless as a comparison axis."""
+    whole stream).  Process wall time would also count start-up and
+    compilation, which are not the comparison."""
     import re
 
     env = dict(os.environ)
@@ -78,9 +79,9 @@ def run_cli(outpath: str, restarts: int, backend_args: list[str]) -> float:
                   proc.stderr.decode(errors="replace"))
     if not m:
         print("WARNING: CLI 'search time' line not found; falling back "
-              f"to process wall time ({wall:.1f} s) which INCLUDES the "
-              "per-process compile-session init — rows are not "
-              "comparable", file=sys.stderr)
+              f"to process wall time ({wall:.1f} s), which includes "
+              "start-up and compilation — rows are not comparable",
+              file=sys.stderr)
         return wall
     return float(m.group(1)) / 1e3
 
@@ -96,8 +97,7 @@ def main():
     print(f"gold standard written for {covered}", file=sys.stderr)
 
     runs = []
-    for label, extra in (("tpu-pallas", []),
-                         ("tpu-xla-engine", ["--backend", "xla"])):
+    for label, extra in (("gpu-kernel", []), ("cpu-engine", ["-c"])):
         out = os.path.join(OUT, f"multiquery_{label}.out")
         dt = run_cli(out, args.restarts, extra)
         runs.append((label, out, dt))

@@ -1,8 +1,7 @@
 """Diagnose the bf16 distance-quantization contribution to ranking
-parity (VERDICT r2 item 2): rerun d2phlb1 r=4096 WITHOUT
-io.pack.quantize_dmat (XLA engine backend — the Pallas kernel's exact
-one-hot MXU fetch contract requires bf16-grid distances, the engine
-does not) and compare parity-vs-oracle with the quantized run.
+parity (ROADMAP design debt 5): rerun d2phlb1 r=4096 WITHOUT
+io.pack.quantize_dmat and compare
+parity-vs-oracle with the quantized run.
 
 Usage: python scripts/quantize_diag.py [--restarts 4096]
 """
@@ -39,7 +38,7 @@ def run_once(restarts: int, quantized: bool):
     try:
         dbfile = os.path.join(FIX, "tableauxdistmatrixdb.small.ascii")
         session = SearchSession(
-            dbfile, SessionConfig(maxstart=restarts, backend="xla"),
+            dbfile, SessionConfig(maxstart=restarts),
             entries=read_database(dbfile))
         with open(os.path.join(FIX, "d2phlb1.input")) as f:
             query = pack_query(parse_search_input(f).queries[0])

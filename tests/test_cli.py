@@ -190,18 +190,18 @@ def test_worked_example_ranking(monkeypatch, capsys):
 def test_missing_dbfile_errors_fast(monkeypatch, capsys):
     """A nonexistent DB path (e.g. the bundled 2qp2-1.input probe,
     whose dbfile line points at the reference author's home dir) must
-    produce an ERROR line and exit 1 — BEFORE any device warm-up (the
-    session orders load -> warm -> upload for exactly this reason)."""
-    from cuda_satabsearch_tpu.core import warmup
+    produce an ERROR line and exit 1 from the DB load — before anything
+    is uploaded to the device or compiled."""
+    from cuda_satabsearch_tpu import session
 
-    def boom():  # the ~2 min device warm-up must never be reached
-        raise AssertionError("warm_backend ran before the DB load")
+    def boom(*a, **k):
+        raise AssertionError("device upload ran before the DB load")
 
-    monkeypatch.setattr(warmup, "warm_backend", boom)
+    monkeypatch.setattr(session, "upload_db", boom)
     rc, out, err = run_cli(["-c"], read_fixture("2qp2-1.input"),
                            monkeypatch, capsys)
     assert rc == 1
-    assert "ERROR" in err
+    assert "ERROR" in err and "2qp2" not in out
 
 
 def test_cli_mesh_flag_bitwise_vs_unsharded(monkeypatch, capsys):

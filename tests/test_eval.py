@@ -234,7 +234,7 @@ def test_timestab(tmp_path, capsys):
     man = tmp_path / "manifest.tsv"
     man.write_text("# label\tresults\tseconds\n"
                    f"cpu baseline\t{res1}\t3600\n"
-                   f"tpu\t{res2}\t36\n")
+                   f"gpu\t{res2}\t36\n")
     rc = ts_main([str(man), "--fischer", "fold"])
     out = capsys.readouterr().out
     assert rc == 0

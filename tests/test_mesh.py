@@ -49,69 +49,59 @@ def test_mesh_padding_counts():
         assert (b.index >= 0).sum() == 5
 
 
-def test_pallas_sharded_matches_unsharded_interpret():
-    """The production (Pallas) kernel under shard_map over the 8-device
-    CPU mesh (interpret mode) is bitwise equal to its unsharded run AND
-    to the XLA engine on the same supplied threefry streams."""
-    from cuda_satabsearch_tpu.ops.pallas_search import (
-        assemble_db_pallas2, dispatch_db_pallas2)
+@pytest.mark.parametrize("ndev", [4, 8])
+def test_kernel_sharded_matches_unsharded(ndev):
+    """The GPU kernel's path under jax.shard_map over a 4- or 8-device
+    CPU mesh (interpret mode) == its unsharded run == the XLA engine,
+    bitwise on the same threefry streams (single and multi-query)."""
+    from cuda_satabsearch_tpu.ops.search import search_many_db
 
     rng = np.random.default_rng(13)
     entries = [random_entry(rng, int(n), f"e{i:03d}")
-               for i, n in enumerate(rng.integers(4, 17, size=19))]
+               for i, n in enumerate(rng.integers(4, 30, size=19))]
     query = pack_query(random_entry(rng, 7, "q"))
-    db = pack_database(entries, buckets=(16, 112))
+    queries = [query] + [pack_query(random_entry(rng, n, f"q{n}"))
+                         for n in (5, 8)]
+    mesh = make_mesh(jax.devices()[:ndev])
+    db = pack_database(entries, buckets=(16, 32, 112), pad_to=ndev)
 
-    kw = dict(maxstart=16, lorder=True, seed=7, query_tag=3, c_max=16,
-              rng_mode="supplied", interpret=True)
-    s_plain, m_plain = assemble_db_pallas2(
-        dispatch_db_pallas2(query, db, **kw))
-
-    mesh = make_mesh(jax.devices()[:8])
-    s_shard, m_shard = assemble_db_pallas2(
-        dispatch_db_pallas2(query, db, mesh=mesh, **kw))
-
-    np.testing.assert_array_equal(s_shard, s_plain)
-    np.testing.assert_array_equal(m_shard, m_plain)
-
+    kw = dict(maxstart=16, lorder=True, seed=7, c_max=16, backend="triton")
+    plain = search_db(query, db, query_tag=3, **kw)
+    shard = search_db(query, db, query_tag=3, sharding=entry_sharding(mesh),
+                      **kw)
+    np.testing.assert_array_equal(shard.scores, plain.scores)
+    np.testing.assert_array_equal(shard.ssemaps, plain.ssemaps)
     ref = search_db(query, db, maxstart=16, lorder=True, seed=7,
                     query_tag=3, c_max=16, backend="xla")
-    np.testing.assert_array_equal(s_shard, ref.scores)
-    np.testing.assert_array_equal(m_shard, ref.ssemaps)
+    np.testing.assert_array_equal(shard.scores, ref.scores)
+    np.testing.assert_array_equal(shard.ssemaps, ref.ssemaps)
+
+    multi = search_many_db(queries, db, query_tags=[3, 4, 5],
+                           sharding=entry_sharding(mesh), **kw)
+    for q, t, got in zip(queries, [3, 4, 5], multi):
+        one = search_db(q, db, query_tag=t, **kw)
+        np.testing.assert_array_equal(got.scores, one.scores)
+        np.testing.assert_array_equal(got.ssemaps, one.ssemaps)
 
 
-def test_pallas_batched_multiquery_sharded_bitwise():
-    """The query-grid-axis batched kernel (_make_db_fnK) under
-    shard_map over the 8-device CPU mesh == its unsharded run, bitwise
-    (mixed exact orders, lsoln on) — the fastest kernel configuration
-    and the multi-chip path are the SAME code since round 4."""
-    from cuda_satabsearch_tpu.ops.pallas_search import (
-        assemble_db_pallas2_multi, dispatch_db_pallas2_multi)
-
-    rng = np.random.default_rng(23)
+def test_engine_sharded_matches_unsharded_4dev():
+    """The XLA engine's SPMD path on a 4-device mesh, bitwise."""
+    rng = np.random.default_rng(31)
     entries = [random_entry(rng, int(n), f"e{i:03d}")
-               for i, n in enumerate(rng.integers(4, 17, size=17))]
-    queries = [pack_query(random_entry(rng, int(n), f"q{i}"))
-               for i, n in enumerate((7, 5, 8))]
-    db = pack_database(entries, buckets=(16, 112))
-
-    kw = dict(maxstart=16, lorder=True, seed=7, query_tags=[4, 5, 6],
-              c_max=16, rng_mode="supplied", interpret=True, lsoln=True)
-    plain = assemble_db_pallas2_multi(
-        dispatch_db_pallas2_multi(queries, db, **kw))
-
-    mesh = make_mesh(jax.devices()[:8])
-    shard = assemble_db_pallas2_multi(
-        dispatch_db_pallas2_multi(queries, db, mesh=mesh, **kw))
-
-    for qi, q in enumerate(queries):
-        np.testing.assert_array_equal(shard[qi][0], plain[qi][0])
-        np.testing.assert_array_equal(shard[qi][1], plain[qi][1])
-        assert shard[qi][1].shape == (db.nentries, q.order)
+               for i, n in enumerate(rng.integers(4, 40, size=15))]
+    query = pack_query(random_entry(rng, 10, "q"))
+    mesh = make_mesh(jax.devices()[:4])
+    plain = search_db(query, pack_database(entries), maxstart=16,
+                      lorder=False, seed=2, query_tag=1, backend="xla")
+    shard = search_db(query, pack_database(entries, pad_to=4), maxstart=16,
+                      lorder=False, seed=2, query_tag=1, backend="xla",
+                      sharding=entry_sharding(mesh))
+    np.testing.assert_array_equal(shard.scores, plain.scores)
+    np.testing.assert_array_equal(shard.ssemaps, plain.ssemaps)
 
 
 def test_mesh_balance_report():
-    """Chunk-split sharding balances work exactly; a naive contiguous
+    """Bucket-split sharding balances work exactly; a naive contiguous
     entry split of a lognormal (ASTRAL-like) size mix does not."""
     from bench import synthetic_entries
     from cuda_satabsearch_tpu.ops.balance import (balance_report,
@@ -119,87 +109,43 @@ def test_mesh_balance_report():
 
     db = pack_database(synthetic_entries(2048), pad_to=8)
     rep = balance_report(db, 8)
-    # per-shard work equal by construction: every device runs E/8 rows
-    # of every padded chunk
+    # per-shard work equal by construction: every device searches 1/8
+    # of every (padded) bucket
     assert rep["imbalance"] < 1e-9
-    assert len(set(rep["per_shard_ms"])) == 1
-    assert len(set(rep["iters_m_per_shard"])) == 1
+    assert len(set(rep["per_shard_work"])) == 1
+    assert len(set(rep["entries_per_shard"])) == 1
     # the naive contiguous split is measurably imbalanced on the
     # size-sorted lognormal mix (small entries first -> last shard
     # gets all the wide ones)
     assert rep["naive_imbalance"] > 0.10
-    # padding overhead at 2048 entries is dominated by each bucket's
-    # tail chunk rounding up to the 128-entry mesh quantum (8 dev x
-    # MAX_GROUP); it stays bounded here and amortizes to a few percent
-    # at the 14291-entry ASTRAL scale
-    assert 0.0 < rep["padding_overhead"] < 1.0
+    # padding overhead: entries padded to their bucket width (the mix's
+    # rows are 1.30x real rows at the default caps) plus pad_to entries
+    assert 0.25 < rep["padding_overhead"] < 0.40
     assert "imbalance 0.00%" in format_report(rep)
 
 
-def test_mesh_balance_matches_real_chunks():
-    """The balance accounting walks the SAME chunk layout the device
-    preparation builds (chunk_layout is shared code), so per-shard
-    iteration counts equal the sum over prepared chunk sizes / ndev."""
-    from bench import synthetic_entries
+def test_mesh_balance_counts_shapes():
+    """Work is counted from shapes alone: padded entries x bucket width
+    x restarts x iterations, split evenly; real work counts each entry
+    at its own order."""
     from cuda_satabsearch_tpu.ops.balance import balance_report
-    from cuda_satabsearch_tpu.ops.pallas_search import (
-        prepare_bucket_pallas2)
 
-    db = pack_database(synthetic_entries(300), pad_to=8)
-    mesh = make_mesh(jax.devices()[:8])
-    total_padded = 0
-    for b in db.buckets:
-        prep = prepare_bucket_pallas2(b, mesh=mesh)
-        total_padded += sum(c["size"] for c in prep["chunks"])
-    rep = balance_report(db, 8, restarts=128)
-    # iters_m_per_shard are millions of entry-iterations per device
-    expect = total_padded / 8 * 128 * 100 / 1e6
-    # report values are rounded to 3 decimals
-    assert abs(rep["iters_m_per_shard"][0] - expect) < 1e-3
-
-
-def test_chunk_layout_mesh_invariant_groups():
-    """The pltpu sharded==unsharded bitwise guarantee rests on this
-    construction: for every bucket size and mesh size, a device's
-    local slice of the meshed chunk plan covers exactly the same
-    global rows, with the same effective group size and the same
-    group-leader rows, as the corresponding slice of the unsharded
-    plan — so the G-keyed, leader-seeded pltpu streams coincide.
-    (Round-5 fix: tails pad to the width's group CEILING
-    (max_reachable_group), never to a smaller power of two, which used
-    to change G for sub-group tails.)"""
-    from cuda_satabsearch_tpu.ops.pallas_sa2 import effective_group
-    from cuda_satabsearch_tpu.ops.pallas_search import (MAX_GROUP,
-                                                        chunk_layout)
-
-    from cuda_satabsearch_tpu.ops.pallas_sa2 import (
-        max_reachable_group)
-
-    for n in (1, 2, 5, 16, 40, 130, 400):
-        for d2 in (8, 16, 24, 48, 64, 112):
-            base = chunk_layout(n, 1, d2=d2)
-            for n1 in (8, 13, 19):
-                for s1, e1, E1 in base:
-                    # unsharded E is always >= the width's group
-                    # ceiling, so the effective G is the tuned value
-                    assert E1 % max_reachable_group(d2) == 0 or E1 >= 16
-            for ndev in (2, 4, 8):
-                meshed = chunk_layout(n, ndev, d2=d2)
-                for s2, e2, E2 in meshed:
-                    assert E2 % (ndev * MAX_GROUP) == 0
-                    local = E2 // ndev
-                    assert local % MAX_GROUP == 0
-                    for n1 in (8, 13, 19):
-                        gl = effective_group(local, d2, n1)
-                        # every unsharded chunk overlapping this span
-                        # lands on the SAME effective G (E >= the
-                        # group ceiling in both layouts)
-                        for s1, e1, E1 in base:
-                            if s1 >= e2 or e1 <= s2:
-                                continue
-                            assert effective_group(E1, d2, n1) == gl, (
-                                n, ndev, d2, n1, E1, local)
-                        # group leaders sit at multiples of gl in both
-                        # layouts (slices start at MAX_GROUP multiples,
-                        # which gl divides)
-                        assert MAX_GROUP % gl == 0
+    rng = np.random.default_rng(2)
+    entries = [random_entry(rng, n, f"e{i}")
+               for i, n in enumerate((3, 5, 9, 20, 20))]
+    db = pack_database(entries, buckets=(8, 16, 32, 112), pad_to=2)
+    rep = balance_report(db, 2, restarts=4, maxiter=10)
+    # buckets: 8 -> [3, 5], 16 -> [9, pad], 32 -> [20, 20]
+    it = 4 * 10 / 1e6
+    assert rep["per_shard_work"] == pytest.approx(
+        [(8 + 16 + 32) * it] * 2)
+    assert rep["entries_per_shard"] == [3, 3]
+    real = (3 + 5 + 9 + 20 + 20) * it
+    assert rep["padding_overhead"] == pytest.approx(
+        2 * (8 + 16 + 32) * it / real - 1)
+    # file order [3, 5, 9, 20, 20] at widths [8, 8, 16, 32, 32]: the
+    # contiguous halves are entries 0-1 and 2-4
+    assert rep["per_shard_naive_work"] == pytest.approx(
+        [16 * it, 80 * it])
+    with pytest.raises(ValueError, match="pad_to"):
+        balance_report(pack_database(entries, pad_to=1), 2)

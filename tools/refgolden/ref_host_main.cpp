@@ -1,5 +1,5 @@
 /* Minimal host driver for the UNMODIFIED reference SA kernel, used as a
- * parity oracle for the TPU framework.
+ * parity oracle for this JAX implementation.
  *
  * The reference's own CPU path (`cudaSaTabsearch -c`) lives inside a CUDA
  * host program we cannot build without the CUDA toolkit; but its kernel
